@@ -9,10 +9,10 @@ engine is pinned by the rest of the suite + the stream matrix.
 import numpy as np
 import jax.numpy as jnp
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.config import Modulation, CodeRate
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
 
 
 def _engine(wf=WaveformMode.OFDM_COX):
@@ -77,7 +77,7 @@ def test_mode_change_rearms_chirp_search_via_path():
 
 
 def test_deliver_updates_engine_bookkeeping():
-    from projectultra_tpu.modem.types import DecodedFrame
+    from projectultra.modem.types import DecodedFrame
     e = _engine()
     seen = []
     e.on_frame = seen.append

@@ -14,12 +14,12 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.signal as sig
 
-from projectultra_tpu.config import CodeRate, ModemConfig, Modulation
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ofdm import demodulator as demod
-from projectultra_tpu.ofdm import modulator as mod_
-from projectultra_tpu.ofdm import pipeline as ofdm_pipeline
-from projectultra_tpu.ops import ldpc as ldpc_ops
+from projectultra.config import CodeRate, ModemConfig, Modulation
+from projectultra.fec import ldpc
+from projectultra.ofdm import demodulator as demod
+from projectultra.ofdm import modulator as mod_
+from projectultra.ofdm import pipeline as ofdm_pipeline
+from projectultra.ops import ldpc as ldpc_ops
 
 DRIFT_DEG_PER_SYM = 2.0
 N_CW = 4

@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.modem.audio import AudioEngine, LoopbackBackend, FileBackend
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.modem.rx_pipeline import RxPipeline
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.sim import watterson as W
+from projectultra.modem.audio import AudioEngine, LoopbackBackend, FileBackend
+from projectultra.modem.engine import ModemEngine
+from projectultra.modem.rx_pipeline import RxPipeline
+from projectultra.protocol import frame_v2 as F
+from projectultra.sim import watterson as W
 
 
 def test_audio_loopback_with_channel():
@@ -58,7 +58,7 @@ def test_rx_pipeline_persistent_engine_mixed_traffic():
     """One persistent engine across feeds (no per-chunk construction), with
     mixed PING + frame traffic in a single stream and a non-default code
     rate that must round-trip into the decode path."""
-    from projectultra_tpu.config import CodeRate
+    from projectultra.config import CodeRate
 
     tx_modem = ModemEngine()
     tx_modem.connected = True
@@ -99,7 +99,7 @@ def test_rx_pipeline_streaming():
 def test_rx_pipeline_dpsk_mode():
     """RxPipeline(mode=DPSK) must actually run the single-carrier DPSK RX
     path (review finding: WF.create used to fall through to OFDM_COX)."""
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.protocol.frame_v2 import WaveformMode
     tx = ModemEngine()
     tx.set_waveform_mode(WaveformMode.DPSK)
     tx.connect_waveform = WaveformMode.DPSK

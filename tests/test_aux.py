@@ -4,10 +4,10 @@ import io
 
 import numpy as np
 
-from projectultra_tpu.utils import logging as L
-from projectultra_tpu.utils.metrics import ModemStats, BatchMetrics, stage_timer
-from projectultra_tpu.utils.settings import AppSettings
-from projectultra_tpu.utils import observability as obs
+from projectultra.utils import logging as L
+from projectultra.utils.metrics import ModemStats, BatchMetrics, stage_timer
+from projectultra.utils.settings import AppSettings
+from projectultra.utils import observability as obs
 
 
 def test_logging_levels_and_categories():
@@ -68,7 +68,7 @@ def test_waterfall_and_constellation():
 def test_waterfall_batch_and_short_inputs():
     """[B, T] input flattens in time order (no silent row drop) and
     shorter-than-fft input zero-pads to one valid line (review fix)."""
-    from projectultra_tpu.utils.observability import waterfall
+    from projectultra.utils.observability import waterfall
     x = np.random.default_rng(0).normal(0, 1, (3, 4096)).astype(np.float32)
     p2, _ = waterfall(x, fft_size=2048)
     pflat, _ = waterfall(x.reshape(-1), fft_size=2048)

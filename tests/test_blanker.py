@@ -15,11 +15,11 @@ zero blanked runs.
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.modem.blanker import ImpulseBlanker, BLOCK
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.config import Modulation, CodeRate
+from projectultra.modem.blanker import ImpulseBlanker, BLOCK
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
 
 
 def _make_engine(wf=WaveformMode.OFDM_COX, mod=Modulation.DQPSK,
@@ -82,7 +82,7 @@ def test_fading_stream_unblanked():
     impulses (a false blank erases 60 ms of a frame that was surviving
     the fade)."""
     import jax
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.sim import watterson as W
 
     rng = np.random.default_rng(1)
     a = _frame_audio()
@@ -122,7 +122,7 @@ def test_qam256_papr_spikes_not_blanked():
     tests/test_high_order.py before the MIN_RUN gate."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.sim import watterson as W
 
     e = _make_engine(mod=Modulation.QAM256, rate=CodeRate.R2_3)
     rng = np.random.default_rng(52000 + 37 * 5)

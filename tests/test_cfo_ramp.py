@@ -24,9 +24,9 @@ def _load(name):
 def test_cfo_ramp_0p2hzps_cox_dqpsk():
     sro = _load("test_sro")
     ramp = _load("test_cfo_ramp")
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     res = sro.run_row(
         "512 COX DQPSK R1/2 @25dB", lambda: ModemEngine(),

@@ -11,8 +11,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.sync import chirp as CS
-from projectultra_tpu.sim import watterson as W
+from projectultra.sync import chirp as CS
+from projectultra.sim import watterson as W
 
 CFG = CS.ChirpConfig()
 

@@ -6,11 +6,12 @@ estimate CFO to ~1-2 Hz under AWGN.
 """
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.sync import chirp as CS
-from projectultra_tpu.sim import watterson as W
+from projectultra.sync import chirp as CS
+from projectultra.sim import watterson as W
 
 CFG = CS.ChirpConfig()
 
@@ -72,8 +73,8 @@ def test_earliest_weak_chirp_wins_over_later_strong():
     detection result (review finding: the 0.7*gmax floor used to skip it,
     silently dropping the early frame).  The strong chirp is reported as
     next_up_start so consumers cap consumption before it."""
-    from projectultra_tpu.psk import mc_dpsk as MC
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.psk import mc_dpsk as MC
+    from projectultra.sim import watterson as W
     mc = MC.level10()
     cc = mc.chirp_config()
     ch = CS.generate(cc)
@@ -87,3 +88,16 @@ def test_earliest_weak_chirp_wins_over_later_strong():
     assert bool(det["success"])
     assert abs(int(det["up_chirp_start"]) - 5000) < 100
     assert abs(int(det["next_up_start"]) - 120000) < 200
+
+
+@pytest.mark.parametrize("backend", ["cpu", "gpu"])
+def test_bf16_switch_refused_on_gpu(monkeypatch, backend):
+    """ULTRA_CHIRP_BF16=1 is allowed on the CPU and refused, with an error
+    rather than a hang, on the GPU."""
+    monkeypatch.setattr(CS, "_BF16", True)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if backend == "gpu":
+        with pytest.raises(RuntimeError, match="refused on the GPU"):
+            CS._refuse_bf16_on_gpu()
+    else:
+        CS._refuse_bf16_on_gpu()

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
-from projectultra_tpu.sim import watterson as W
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
+from projectultra.sim import watterson as W
 
 
 def _loopback(tx_audio: np.ndarray, waveform=WaveformMode.OFDM_COX,
@@ -90,7 +90,7 @@ def test_data_frame_loopback_ofdm_chirp():
     tx_modem.connected = True
     tx_modem.handshake_complete = True
     tx_modem.set_waveform_mode(WaveformMode.OFDM_CHIRP)
-    from projectultra_tpu.config import Modulation, CodeRate
+    from projectultra.config import Modulation, CodeRate
     tx_modem.data_modulation = Modulation.DQPSK
     tx_modem.data_code_rate = CodeRate.R1_4
     frame = F.DataFrame.make_data("W1AW", "VE3ABC", 2, "chirp-path message")
@@ -103,7 +103,7 @@ def test_data_frame_loopback_ofdm_chirp():
 
 
 def _cox_engine():
-    from projectultra_tpu.config import Modulation, CodeRate
+    from projectultra.config import Modulation, CodeRate
     m = ModemEngine()
     m.connected = True
     m.handshake_complete = True
@@ -131,8 +131,8 @@ def test_data_frame_loopback_ofdm_cox():
     assert df is not None and "cox-path message" in df.payload_as_text()
     assert frames[0].snr_db > 15.0  # clean loopback: high per-carrier SNR
     # Observability: equalized constellation collected, points near QAM16.
-    from projectultra_tpu.config import Modulation
-    from projectultra_tpu.ofdm import constellations as con
+    from projectultra.config import Modulation
+    from projectultra.ofdm import constellations as con
     pts = rx.last_constellation
     assert pts is not None and len(pts) > 100
     tbl = np.asarray(con.table(Modulation.QAM16))
@@ -144,7 +144,7 @@ def test_data_frame_loopback_ofdm_cox():
 def test_data_frame_loopback_otfs(mode):
     """Connected-session data over OTFS: one LDPC codeword per frame,
     480-sample gaps (modem_engine.cpp:418-451, modem_rx_decode.cpp:700-830)."""
-    from projectultra_tpu.config import Modulation, CodeRate
+    from projectultra.config import Modulation, CodeRate
 
     def eng():
         m = ModemEngine()
@@ -192,7 +192,7 @@ def test_data_frame_ofdm_cox_with_cfo_and_noise():
 def test_otfs_eq_under_good_channel_fading():
     """OTFS_EQ engine decode through a CCIR-Good Watterson channel + AWGN —
     the adaptive modem's pick for Good channels (adaptive_modem.hpp:287-296)."""
-    from projectultra_tpu.config import Modulation, CodeRate
+    from projectultra.config import Modulation, CodeRate
 
     def eng():
         m = ModemEngine()
@@ -222,7 +222,7 @@ def test_otfs_eq_under_good_channel_fading():
 def test_data_frame_loopback_ofdm_cox_nvis():
     """NVIS profile: 1024-FFT differential Cox OFDM through the engine
     (ofdm_cox_waveform.hpp 'NVIS 1024-FFT capable'; LTS threshold 0.05)."""
-    from projectultra_tpu.config import Modulation, CodeRate, nvis_mode
+    from projectultra.config import Modulation, CodeRate, nvis_mode
 
     def eng():
         m = ModemEngine(config=nvis_mode())
@@ -249,7 +249,7 @@ def test_data_frame_loopback_ofdm_cox_nvis():
 
 def test_cli_ptx_prx_pipe(tmp_path, capsys):
     """Full CLI: ptx writes f32 audio, prx decodes it."""
-    from projectultra_tpu import cli
+    from projectultra import cli
     out = tmp_path / "tx.f32"
     rc = cli.main(["ptx", "Hello CLI", "-s", "W1AW", "-d", "VE3ABC",
                    "-o", str(out)])
@@ -269,7 +269,7 @@ def test_cli_ptx_prx_nvis_profile(tmp_path, capsys):
     """`-p nvis` runs both ends on the 1024-FFT skywave profile (documented
     CLI deviation: the reference selects profiles via its settings system,
     main.cpp has no profile flag)."""
-    from projectultra_tpu import cli
+    from projectultra import cli
     out = tmp_path / "tx.f32"
     rc = cli.main(["ptx", "skywave profile", "-s", "W1AW", "-d", "VE3ABC",
                    "-p", "nvis", "-o", str(out)])
@@ -285,7 +285,7 @@ def test_cli_ptx_prx_nvis_profile(tmp_path, capsys):
 
 
 def test_cli_info(capsys):
-    from projectultra_tpu import cli
+    from projectultra import cli
     assert cli.main(["info"]) == 0
     assert "48000 Hz" in capsys.readouterr().out
 
@@ -351,7 +351,7 @@ def test_otfs_eq_engine_at_12db():
     value (~0.94 here): exercises the coarse 0.7 detection gate + fallback
     timing through the FULL engine path (review fix; the kernel-level
     twin is tests/test_otfs.py::test_detect_frame_at_operating_snr)."""
-    from projectultra_tpu.config import Modulation, CodeRate
+    from projectultra.config import Modulation, CodeRate
 
     def eng():
         m = ModemEngine()

@@ -12,10 +12,10 @@ Reference semantics being mirrored (in host-poll form):
 
 import numpy as np
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.config import CodeRate
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
 
 
 def _cox_pair():
@@ -68,7 +68,7 @@ def test_mistimed_preamble_rescued_by_hunting(monkeypatch):
     """Detection skewed 100 samples early (beyond the 48-sample CP): the
     straight decode fails, the LDPC hunt recovers the +100 offset and the
     frame decodes."""
-    from projectultra_tpu.sync import schmidl_cox as SC
+    from projectultra.sync import schmidl_cox as SC
     tx, rx = _cox_pair()
     frame = F.DataFrame.make_data("W1AW", "VE3ABC", 3, "hunted frame")
     audio = tx.transmit(frame.serialize())
@@ -126,8 +126,8 @@ def test_long_frame_fills_buffer_still_detected():
     ~30% of the preamble's own plateau windows, killing detection of
     long frames at ANY SNR (regression: caught by the 400-byte
     calibration rows at 25 dB AWGN)."""
-    from projectultra_tpu.config import Modulation
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import Modulation
+    from projectultra.sim import watterson as W
     import jax
     import jax.numpy as jnp
 

@@ -10,10 +10,10 @@ string and require exact repair.
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.fec import crc_recover as CR
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.protocol.frame_v2 import (DATA_CW_HEADER_SIZE,
+from projectultra.config import CodeRate
+from projectultra.fec import crc_recover as CR
+from projectultra.fec import ldpc
+from projectultra.protocol.frame_v2 import (DATA_CW_HEADER_SIZE,
                                                 crc16_ccitt)
 
 

@@ -1,7 +1,7 @@
 """Multi-host DCN sweep parity: 2 processes x 4 devices == 1 x 8.
 
 Drives tools/dcn_sweep.py (launcher spawns two jax.distributed-coordinated
-worker processes; cross-host reductions ride gloo/TCP, DCN on real pods)
+worker processes; cross-host reductions ride gloo/TCP)
 and requires bit-identical acquisition-sweep counts against the
 single-process reference.  SURVEY §2.6 "DCN only for multi-host sweep
 scaling".

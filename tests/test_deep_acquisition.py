@@ -15,10 +15,10 @@ long-run false-positive property).
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.config import CodeRate
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
 
 MSG = "deep acquisition extends the cox floor below the plateau"
 

@@ -15,15 +15,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from projectultra_tpu.config import (Modulation, CodeRate, bits_per_symbol,
+from projectultra.config import (Modulation, CodeRate, bits_per_symbol,
                                      high_throughput)
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.fec.interleave import channel_interleaver
-from projectultra_tpu.ofdm import carriers as C, modulator as M, pipeline as P
-from projectultra_tpu.ofdm import delay_fit as DF
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.sync import schmidl_cox as SC
+from projectultra.fec import ldpc
+from projectultra.fec.interleave import channel_interleaver
+from projectultra.ofdm import carriers as C, modulator as M, pipeline as P
+from projectultra.ofdm import delay_fit as DF
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.sim import watterson as W
+from projectultra.sync import schmidl_cox as SC
 
 LEAD, TAIL = 7200, 1152
 NCW = 8
@@ -116,8 +116,8 @@ def test_engine_delayfit_rescue():
     """Engine-level rescue: a Good-channel QAM16 R2/3 data frame that the
     standard front/SRO ladder fails decodes fully through the delay-model
     retry (pinned channel seed), and the stats counter records it."""
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
 
     def eng():
         m = ModemEngine(config=high_throughput())

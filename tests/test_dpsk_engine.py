@@ -17,11 +17,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
-from projectultra_tpu.psk import dpsk as DP
-from projectultra_tpu.sim import watterson as W
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
+from projectultra.psk import dpsk as DP
+from projectultra.sim import watterson as W
 
 
 def _dpsk_engines():
@@ -115,13 +115,13 @@ def test_cli_dpsk_pipe_loopback():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo
     tx = subprocess.run(
-        [sys.executable, "-m", "projectultra_tpu.cli", "ptx", "cli dpsk",
+        [sys.executable, "-m", "projectultra.cli", "ptx", "cli dpsk",
          "-s", "AA1AA", "-d", "BB2BB", "-w", "dpsk"],
         capture_output=True, env=env, cwd=repo, timeout=600)
     assert tx.returncode == 0, tx.stderr.decode()[-2000:]
     assert len(tx.stdout) > 0
     rx = subprocess.run(
-        [sys.executable, "-m", "projectultra_tpu.cli", "prx", "-w", "dpsk"],
+        [sys.executable, "-m", "projectultra.cli", "prx", "-w", "dpsk"],
         input=tx.stdout, capture_output=True, env=env, cwd=repo, timeout=600)
     assert rx.returncode == 0, rx.stderr.decode()[-2000:]
     err = rx.stderr.decode()

@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.modem.excision import ToneExciser, notch_coef
-from projectultra_tpu.native import biquad_cascade
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.config import Modulation, CodeRate
+from projectultra.modem.excision import ToneExciser, notch_coef
+from projectultra.native import biquad_cascade
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
 
 FS = 48000
 
@@ -69,7 +69,7 @@ def test_no_trigger_on_own_waveforms():
     narrowest shipped line, psk/dpsk.py robust) over mild noise, so the
     quiet gate passes on every update — the narrowness gate must reject
     the modulated carrier.  Same for an MC-DPSK frame stream."""
-    from projectultra_tpu.psk import dpsk as DP
+    from projectultra.psk import dpsk as DP
     rng = np.random.default_rng(3)
     cfg = DP.robust()
     bits = rng.integers(0, 2, (1, 600)).astype(np.float32)
@@ -83,7 +83,7 @@ def test_no_trigger_on_own_waveforms():
     assert ex.quiet_updates >= 10  # the gate DID evaluate the burst
     assert ex.active_tones == []
 
-    from projectultra_tpu.psk import mc_dpsk as MC
+    from projectultra.psk import mc_dpsk as MC
     mc = MC.level10()
     cw = jnp.asarray(rng.integers(0, 2, (1, 648)).astype(np.float32))
     data = np.asarray(MC.modulate(mc, cw))[0]
@@ -100,7 +100,7 @@ def test_engine_decodes_through_cw_tone(sir_db, tone_hz):
     """OFDM_COX frame behind a co-channel CW tone: 0/3 decodes without
     excision at these operating points (docs/PERF.md round 4); with the
     exciser engaged during the noise lead the frame must decode."""
-    from projectultra_tpu.modem.engine import ModemEngine
+    from projectultra.modem.engine import ModemEngine
     rng = np.random.default_rng(int(sir_db) + 7)
 
     def make(wf):
@@ -177,7 +177,7 @@ def test_mc_dpsk_tone_on_carrier(trial):
     trial fell over.  Round 5 zeroes the straddled carrier's LLRs
     (acquisition/chirp.py notch-aware erasure) so the code treats the hole
     as parity-recoverable: all three seeds must now decode."""
-    from projectultra_tpu.modem.engine import ModemEngine
+    from projectultra.modem.engine import ModemEngine
     rng = np.random.default_rng(100 + trial)
 
     def make():
@@ -235,9 +235,9 @@ def test_no_trigger_on_dpsk_frame_preamble_comb():
     survive."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.sim import watterson as W
-    from projectultra_tpu.psk import dpsk as DP
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.sim import watterson as W
+    from projectultra.psk import dpsk as DP
 
     def eng():
         m = ModemEngine()

@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import CodeRate, Modulation
-from projectultra_tpu.protocol import frame_v2 as F
+from projectultra.config import CodeRate, Modulation
+from projectultra.protocol import frame_v2 as F
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +105,7 @@ def test_ldpc_decode_roundtrip():
     ser = F.DataFrame.make_data("W1AW", "VE3ABC", 1, payload).serialize()
     enc = F.encode_frame_with_ldpc(ser)
     # bits -> hard LLRs
-    from projectultra_tpu.utils.bits import bytes_to_bits
+    from projectultra.utils.bits import bytes_to_bits
     soft = [np.where(bytes_to_bits(cw)[:648] > 0, -6.0, 6.0).astype(np.float32)
             for cw in enc]
     decoded, data = F.decode_codewords_with_ldpc(soft)

@@ -32,8 +32,8 @@ import struct
 import numpy as np
 import pytest
 
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol.frame_v2 import WaveformMode
 
 REF_DATA = "/root/reference/tests/data"
 

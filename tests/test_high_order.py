@@ -17,11 +17,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
-from projectultra_tpu.sim import watterson as W
+from projectultra.config import Modulation, CodeRate
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.frame_v2 import WaveformMode
+from projectultra.sim import watterson as W
 
 
 def _loopback(mod: Modulation, rate: CodeRate, snr_db: float,
@@ -80,7 +80,7 @@ def test_nvis_high_order_ladder_thresholds(mod, rate, snr):
     on this profile's ~-32 dB EVM floor at QAM64 density — QAM256 R5/6
     keeps a ~10% ARQ-recovered long-frame residual and is asserted by the
     session test instead)."""
-    from projectultra_tpu.config import nvis_mode
+    from projectultra.config import nvis_mode
     oks = [_loopback(mod, rate, snr, t, config=nvis_mode())
            for t in range(3)]
     assert all(oks), oks
@@ -90,8 +90,8 @@ def test_nvis_profile_selects_nvis_high_table():
     """high_order_table routes the 1024-FFT no-pilot profile to the NVIS
     ladder (top row QAM256 R5/6) and every pilot profile to the
     conservative 512 ladder."""
-    from projectultra_tpu.config import nvis_mode, high_throughput, ModemConfig
-    from projectultra_tpu.modem.adaptive import (
+    from projectultra.config import nvis_mode, high_throughput, ModemConfig
+    from projectultra.modem.adaptive import (
         CalibratedAdaptiveController, high_order_table)
     assert high_order_table(nvis_mode()) \
         is CalibratedAdaptiveController.NVIS_HIGH_TABLE
@@ -161,10 +161,10 @@ def _trial5_cw0_llrs():
     the measured in-field trapping-set input: 2 confident wrong signs
     whose bits share two checks of the R2/3 H, which plain min-sum
     oscillates on for the full 50 iterations at any SNR."""
-    from projectultra_tpu.config import bits_per_symbol
-    from projectultra_tpu.ofdm import demodulator as D, pipeline as P
-    from projectultra_tpu.fec.interleave import channel_interleaver
-    from projectultra_tpu.config import ModemConfig
+    from projectultra.config import bits_per_symbol
+    from projectultra.ofdm import demodulator as D, pipeline as P
+    from projectultra.fec.interleave import channel_interleaver
+    from projectultra.config import ModemConfig
 
     mod, rate = Modulation.QAM256, CodeRate.R2_3
     rng = np.random.default_rng(52000 + 37 * 5)
@@ -197,8 +197,8 @@ def test_ldpc_trap_escape_rescues_field_case():
     plain min-sum must fail it (documenting the reference decoder's
     limitation — lane parity) and trap_escape must rescue it, leaving a
     converged sibling lane bit-identical."""
-    from projectultra_tpu.fec.ldpc import get_code
-    from projectultra_tpu.ops import ldpc as ldpc_ops
+    from projectultra.fec.ldpc import get_code
+    from projectultra.ops import ldpc as ldpc_ops
 
     code = get_code(CodeRate.R2_3)
     ld = _trial5_cw0_llrs()
@@ -223,7 +223,7 @@ def test_calibrated_table_excludes_parity_free_rates():
     512 plan's deterministic ICI floor at any SNR — measured 6-7/10
     corrupted 400-byte QAM16 R3/4 frames at 80 dB, an ARQ livelock the
     frame CRC detects but cannot fix."""
-    from projectultra_tpu.modem.adaptive import CalibratedAdaptiveController
+    from projectultra.modem.adaptive import CalibratedAdaptiveController
     bad = (CodeRate.R3_4, CodeRate.R5_6)
     for thresh, mod, rate in (CalibratedAdaptiveController.TABLE
                               + CalibratedAdaptiveController.HIGH_TABLE):
@@ -258,9 +258,9 @@ def test_exact_ladder_requires_flat_and_low_cfo():
     """The 512 exact ladder (real-front R5/6 rows) needs BOTH sustained
     flat evidence AND sustained low-CFO evidence; losing either closes
     it back to the R2/3 ladder."""
-    from projectultra_tpu.modem.adaptive import (
+    from projectultra.modem.adaptive import (
         CalibratedAdaptiveController, exact_order_table)
-    from projectultra_tpu.config import ModemConfig, nvis_mode
+    from projectultra.config import ModemConfig, nvis_mode
 
     assert exact_order_table(ModemConfig()) \
         == CalibratedAdaptiveController.EXACT_TABLE
@@ -294,9 +294,9 @@ def test_512_session_negotiates_qam256_r56_exact_ladder():
     """Default-profile (512 pilot plan) session at 32 dB flat AWGN with
     ~0 CFO: the exact ladder carries auto-negotiation to QAM256 R5/6 —
     a rank the analytic ICI floor made impossible on this plan."""
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode as WM
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.protocol.frame_v2 import WaveformMode as WM
+    from projectultra.sim import watterson as W
 
     true_snr = 32.0
     key = jax.random.PRNGKey(21)
@@ -347,10 +347,10 @@ def test_one_way_transfer_downgrades_when_fading_develops():
     freeze at a high-order mode when fading develops mid-transfer: the
     downgrade-only control-reading path (adaptive.observe_control) is
     the only feedback and has to close the gate."""
-    from projectultra_tpu.config import nvis_mode
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
-    from projectultra_tpu.config import bits_per_symbol, code_rate_value
+    from projectultra.config import nvis_mode
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
+    from projectultra.config import bits_per_symbol, code_rate_value
 
     key = jax.random.PRNGKey(11)
     counter = [0]
@@ -432,8 +432,8 @@ def test_wideband_snr_survives_guarded_consume():
     is starved and the estimator must pool the audio AFTER the frame
     instead of falling back to the (mostly signal) whole snapshot, which
     read 34 dB frames at ~6 dB and parked negotiation on MC_DPSK."""
-    from projectultra_tpu.config import nvis_mode
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import nvis_mode
+    from projectultra.sim import watterson as W
 
     tx, rx = ModemEngine(config=nvis_mode()), ModemEngine(config=nvis_mode())
     fr = F.DataFrame.make_data("AA1AA", "BB2BB", 1,
@@ -457,10 +457,10 @@ def test_nvis_session_negotiates_qam256_r56():
     the flat-gated NVIS ladder must climb the data mode to QAM256 R5/6
     (12.7 kbps over-the-air class) with every message delivered — the
     beyond-reference throughput path end to end."""
-    from projectultra_tpu.config import nvis_mode
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode as WM
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import nvis_mode
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.protocol.frame_v2 import WaveformMode as WM
+    from projectultra.sim import watterson as W
 
     true_snr = 34.0
     key = jax.random.PRNGKey(42)

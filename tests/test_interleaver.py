@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from projectultra_tpu.fec.interleave import Interleaver, ChannelInterleaver
+from projectultra.fec.interleave import Interleaver, ChannelInterleaver
 
 
 def test_block_interleaver_permutation_matches_reference(golden_dir):

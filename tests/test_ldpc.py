@@ -10,10 +10,10 @@ import os
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.utils.bits import bytes_to_bits, bits_to_bytes
+from projectultra.config import CodeRate
+from projectultra.fec import ldpc
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.utils.bits import bytes_to_bits, bits_to_bytes
 
 import jax.numpy as jnp
 

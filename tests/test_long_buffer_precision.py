@@ -12,9 +12,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.psk import dpsk as DP
-from projectultra_tpu.sync import chirp as CS
-from projectultra_tpu.sync.schmidl_cox import _window_sum
+from projectultra.psk import dpsk as DP
+from projectultra.sync import chirp as CS
+from projectultra.sync.schmidl_cox import _window_sum
 
 
 def test_window_sum_long_buffer_precision():

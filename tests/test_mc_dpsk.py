@@ -10,12 +10,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.psk import mc_dpsk as MC
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.utils.bits import bytes_to_bits
+from projectultra.config import CodeRate
+from projectultra.fec import ldpc
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.psk import mc_dpsk as MC
+from projectultra.sim import watterson as W
+from projectultra.utils.bits import bytes_to_bits
 
 CFG = MC.MCDPSKConfig()
 

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ofdm import pipeline as P
-from projectultra_tpu.parallel import mesh as mesh_mod
+from projectultra.config import Modulation, CodeRate
+from projectultra.fec import ldpc
+from projectultra.ofdm import pipeline as P
+from projectultra.parallel import mesh as mesh_mod
 
 
 def test_sharded_pipeline_8_devices():

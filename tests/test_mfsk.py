@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from projectultra_tpu.config import CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.psk import fsk
-from projectultra_tpu.sim import watterson as W
+from projectultra.config import CodeRate
+from projectultra.fec import ldpc
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.psk import fsk
+from projectultra.sim import watterson as W
 
 CODE = ldpc.get_code(CodeRate.R1_4)
 

@@ -4,7 +4,7 @@ The LDPC H matrices and pilot sequences depend on exact 32-bit MT streams
 (reference: src/fec/ldpc_encoder.cpp:77, src/ofdm/modulator.cpp:39).
 """
 
-from projectultra_tpu.utils.mt19937 import MT19937, fisher_yates_inplace
+from projectultra.utils.mt19937 import MT19937, fisher_yates_inplace
 
 # First three outputs of std::mt19937 for each seed (g++ 12.2, libstdc++).
 KNOWN = {

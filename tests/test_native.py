@@ -4,8 +4,8 @@ import threading
 
 import numpy as np
 
-from projectultra_tpu import native
-from projectultra_tpu.protocol.frame_v2 import crc16_ccitt
+from projectultra import native
+from projectultra.protocol.frame_v2 import crc16_ccitt
 
 
 def test_native_builds():

@@ -11,16 +11,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from projectultra_tpu.config import (ModemConfig, Modulation, CodeRate,
+from projectultra.config import (ModemConfig, Modulation, CodeRate,
                                      nvis_mode, high_throughput,
                                      bits_per_symbol)
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.fec.interleave import channel_interleaver
-from projectultra_tpu.ofdm import carriers as C
-from projectultra_tpu.ofdm import modulator as M
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.sync import schmidl_cox as SC
+from projectultra.fec import ldpc
+from projectultra.fec.interleave import channel_interleaver
+from projectultra.ofdm import carriers as C
+from projectultra.ofdm import modulator as M
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.sim import watterson as W
+from projectultra.sync import schmidl_cox as SC
 
 
 def _cox_e2e(cfg, mod, rate, snr_db, cfo=0.0, B=2, seed=7):
@@ -116,7 +116,7 @@ def test_qam256_real_passband_mode(monkeypatch):
     cancellation (cancel_conjugate_image).  Exact at zero CFO; validated
     to +-5 Hz at 42 dB — the residual low-carrier ringing binds beyond
     that, which is why "analytic" is the default (maybe_analytic)."""
-    from projectultra_tpu.ofdm import demodulator as D
+    from projectultra.ofdm import demodulator as D
     monkeypatch.setattr(D, "QAM256_RX", "real")
     cfg = nvis_mode()
     for cfo in (0.0, 3.0):
@@ -134,8 +134,8 @@ def test_high_throughput_qam16_pilots():
 
 
 def test_waveform_factory():
-    from projectultra_tpu.waveform import factory as WF
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.waveform import factory as WF
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     assert WF.recommend_mode(5.0) == WaveformMode.MC_DPSK
     assert WF.recommend_mode(15.0) == WaveformMode.OFDM_CHIRP
@@ -159,7 +159,7 @@ def test_waveform_factory():
                          np.zeros(2000, np.float32)])
     sync = wf.detect_sync(jnp.asarray(tx[None, :]))
     assert sync.detected[0]
-    from projectultra_tpu.psk import mc_dpsk as MC
+    from projectultra.psk import mc_dpsk as MC
     n_sym = MC.num_symbols_for_bits(wf.config, code.n)
     start = int(sync.start_sample[0])
     span = jnp.asarray(tx[None, start:])
@@ -170,7 +170,7 @@ def test_waveform_factory():
 
 
 def test_fsk_loopback():
-    from projectultra_tpu.psk import fsk as FSK
+    from projectultra.psk import fsk as FSK
     cfg = FSK.FSKConfig(samples_per_symbol=768, repetition=2)
     rng = np.random.default_rng(1)
     bits = rng.integers(0, 2, size=(2, 64)).astype(np.float32)
@@ -182,7 +182,7 @@ def test_fsk_loopback():
 
 
 def test_dsp_primitives():
-    from projectultra_tpu.ops import dsp as D
+    from projectultra.ops import dsp as D
     # FIR lowpass removes a high tone, keeps a low one.
     t = np.arange(4096) / 48000.0
     sig = (np.sin(2 * np.pi * 500 * t) + np.sin(2 * np.pi * 8000 * t)

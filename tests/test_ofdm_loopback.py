@@ -12,12 +12,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.config import ModemConfig, Modulation, CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ofdm import modulator as M
-from projectultra_tpu.ofdm import pipeline as P
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.utils.bits import bytes_to_bits
+from projectultra.config import ModemConfig, Modulation, CodeRate
+from projectultra.fec import ldpc
+from projectultra.ofdm import modulator as M
+from projectultra.ofdm import pipeline as P
+from projectultra.sim import watterson as W
+from projectultra.utils.bits import bytes_to_bits
 
 CHIRP_CFG = P.chirp_ofdm_config()
 
@@ -99,9 +99,9 @@ def test_loopback_multi_codeword():
     rng = np.random.default_rng(3)
     B, ncw = 2, 3
     info = rng.integers(0, 2, size=(B, ncw, code.k)).astype(np.float32)
-    from projectultra_tpu.ops import ldpc as ldpc_ops
-    from projectultra_tpu.fec.interleave import channel_interleaver
-    from projectultra_tpu.ofdm import carriers as C
+    from projectultra.ops import ldpc as ldpc_ops
+    from projectultra.fec.interleave import channel_interleaver
+    from projectultra.ofdm import carriers as C
 
     cw = np.asarray(ldpc_ops.encode(code, jnp.asarray(info.reshape(B * ncw, -1))))
     cm = C.carrier_map(CHIRP_CFG)
@@ -140,7 +140,7 @@ def test_loopback_coherent_qam16_pilots():
 def test_fast_path_matches_scan_path():
     """The parallel no-pilot differential demod must match the scan path
     bit-for-bit (same LLRs)."""
-    from projectultra_tpu.ofdm import demodulator as D
+    from projectultra.ofdm import demodulator as D
 
     code = ldpc.get_code(CodeRate.R1_2)
     rng = np.random.default_rng(17)
@@ -166,3 +166,34 @@ def test_fast_path_matches_scan_path():
                                    t0_base=2 * L)
     np.testing.assert_allclose(np.asarray(fast), np.asarray(scan),
                                rtol=0, atol=2e-4)
+
+
+def test_equalized_presynced_demaps_to_presynced_llrs():
+    """The equalized symbols the backend comparison reads are exactly what
+    the presynced demod demaps: demapping them gives its LLRs (to f32
+    rounding: the two programs fuse the arithmetic differently)."""
+    from projectultra.ofdm import demodulator as D
+    from projectultra.ops import demap
+
+    code = ldpc.get_code(CodeRate.R1_2)
+    info = np.random.default_rng(19).integers(0, 2, (2, code.k))
+    tx = P.tx_frame(CHIRP_CFG, Modulation.DQPSK, CodeRate.R1_2,
+                    jnp.asarray(info, jnp.float32))
+    rx = W.add_noise_active(jax.random.PRNGKey(4), tx, 0.0)
+    cfo = jnp.asarray([10.0, -5.0])
+    S = P.num_data_symbols(CHIRP_CFG, Modulation.DQPSK, 1)
+
+    llrs, _ = D.demodulate_presynced(CHIRP_CFG, Modulation.DQPSK, rx, cfo,
+                                     0.0, training_symbols=2,
+                                     num_data_symbols=S)
+    eq, prev, cnv = D.equalized_presynced(CHIRP_CFG, Modulation.DQPSK, rx,
+                                          training_symbols=2,
+                                          num_data_symbols=S, cfo_hz=cfo)
+    assert eq.shape == prev.shape == (2, S, eq.shape[-1])
+    assert cnv.shape == (2, 1, eq.shape[-1])
+    again = demap.demap(Modulation.DQPSK, eq, cnv, prev=prev).reshape(2, -1)
+    np.testing.assert_allclose(np.asarray(again), np.asarray(llrs),
+                               rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="no-pilot differential"):
+        D.equalized_presynced(ModemConfig(), Modulation.DQPSK, rx,
+                              training_symbols=2, num_data_symbols=S)

@@ -7,12 +7,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.otfs import otfs as O
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.utils.bits import bytes_to_bits
+from projectultra.config import Modulation, CodeRate
+from projectultra.fec import ldpc
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.otfs import otfs as O
+from projectultra.sim import watterson as W
+from projectultra.utils.bits import bytes_to_bits
 
 CFG = O.OTFSConfig()
 
@@ -129,7 +129,7 @@ def test_detect_frame_at_operating_snr():
     repeated-symbol metric tops out near SNR/(1+SNR) ~ 0.94, which the old
     fine-only gate rejected (review finding).  End-to-end: detect on the
     noisy stream, then decode through the engine-style refined start."""
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.sim import watterson as W
     cfg = CFG
     code = ldpc.get_code(CodeRate.R1_4)
     rng = np.random.default_rng(5)

@@ -35,7 +35,7 @@ def test_ours_at_or_above_reference_everywhere(curves):
 def test_covers_every_reference_matrix_row(curves):
     """Every regression_matrix.sh row the reference harness can run
     (MC_DPSK + OFDM_CHIRP, basic + --full tiers) must be in the overlay."""
-    from projectultra_tpu.parallel.sweep import REGRESSION_MATRIX, FULL_EXTRA
+    from projectultra.parallel.sweep import REGRESSION_MATRIX, FULL_EXTRA
     have = {(p["waveform"], p["snr_db"], p["cfo_hz"], p["channel"])
             for p in curves["points"]}
     for point, _min in list(REGRESSION_MATRIX) + list(FULL_EXTRA):

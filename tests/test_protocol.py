@@ -8,14 +8,14 @@ tools/cli_simulator.cpp.
 import numpy as np
 import pytest
 
-from projectultra_tpu.config import Modulation, CodeRate
-from projectultra_tpu.protocol import frame_v2 as F
-from projectultra_tpu.protocol.arq import (ARQConfig, ARQMode, StopAndWaitARQ,
+from projectultra.config import Modulation, CodeRate
+from projectultra.protocol import frame_v2 as F
+from projectultra.protocol.arq import (ARQConfig, ARQMode, StopAndWaitARQ,
                                            SelectiveRepeatARQ)
-from projectultra_tpu.protocol.connection import (Connection, ConnectionConfig,
+from projectultra.protocol.connection import (Connection, ConnectionConfig,
                                                   ConnectionState,
                                                   recommend_data_mode)
-from projectultra_tpu.protocol.frame_v2 import WaveformMode
+from projectultra.protocol.frame_v2 import WaveformMode
 
 
 def _link(a, b):
@@ -330,7 +330,7 @@ def test_file_transfer_roundtrip(tmp_path):
 def test_two_station_over_the_air():
     """Full acoustic session: chirp PING/PONG, CONNECT via MC-DPSK audio,
     data frames at negotiated rate (cli_simulator.cpp:175-380 semantics)."""
-    from projectultra_tpu.protocol.engine import ProtocolEngine
+    from projectultra.protocol.engine import ProtocolEngine
 
     a, b = ProtocolEngine(), ProtocolEngine()
     a.connection.set_local_callsign("W1AW")
@@ -361,7 +361,7 @@ def test_two_station_over_the_air():
 def test_file_transfer_over_the_air(tmp_path):
     """A file crosses the acoustic link: FILE_START/FILE_DATA chunking,
     compression, SR-ARQ and reassembly all over modulated audio."""
-    from projectultra_tpu.protocol.engine import ProtocolEngine
+    from projectultra.protocol.engine import ProtocolEngine
 
     a, b = ProtocolEngine(), ProtocolEngine()
     a.connection.set_local_callsign("W1AW")
@@ -454,8 +454,8 @@ def test_over_the_air_lossy_soak():
     exercise loss recovery)."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(11)
     counter = [0]
@@ -513,8 +513,8 @@ def test_file_transfer_over_lossy_air(tmp_path):
     the system actually supports."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(23)
     counter = [0]
@@ -528,7 +528,7 @@ def test_file_transfer_over_lossy_air(tmp_path):
                         W.PRESETS["moderate"](8.0))
         return np.asarray(a)[0]
 
-    from projectultra_tpu.config import CodeRate
+    from projectultra.config import CodeRate
 
     a, b = ProtocolEngine(), ProtocolEngine()
     a.connection.set_local_callsign("W1AW")
@@ -561,10 +561,10 @@ def test_calibrated_tables_and_waveform_pick():
     """Round-3 calibrated negotiation: thresholds live on TRUE wideband SNR
     (measured envelopes, tools/calibrate_mode_table.py) — everything below
     the ~14 dB Schmidl-Cox acquisition floor routes to MC_DPSK."""
-    from projectultra_tpu.protocol.connection import (
+    from projectultra.protocol.connection import (
         Connection, ConnectionConfig, recommend_data_mode_calibrated)
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     assert recommend_data_mode_calibrated(8.0) == \
         (Modulation.DBPSK, CodeRate.R1_4)
@@ -604,10 +604,10 @@ def test_wideband_snr_estimator_tracks_truth():
     tools/calibrate_snr.py.)"""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
+    from projectultra.protocol.frame_v2 import WaveformMode
+    from projectultra.sim import watterson as W
 
     def measure(wf, true_snr):
         tx, rx = ModemEngine(), ModemEngine()
@@ -646,8 +646,8 @@ def test_file_transfer_over_lossy_air_auto_calibrated(tmp_path):
     above, kept as the parity pin)."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(23)
     counter = [0]
@@ -672,7 +672,7 @@ def test_file_transfer_over_lossy_air_auto_calibrated(tmp_path):
     b.on_tx_audio = lambda audio: a.feed_audio(channel(audio))
 
     assert a.connect("VE3ABC")
-    from projectultra_tpu.config import CodeRate
+    from projectultra.config import CodeRate
     assert b.connection.data_code_rate == CodeRate.R1_4  # within envelope
     src = tmp_path / "lossy_auto.bin"
     rng = np.random.default_rng(5)
@@ -697,9 +697,9 @@ def test_fade_spread_benign_relaxation():
     fade_spread < 2.5 dB); unknown or high spread keeps the conservative
     17 dB guard band, and a single high reading disqualifies benign for a
     while (decaying max)."""
-    from projectultra_tpu.protocol.connection import (
+    from projectultra.protocol.connection import (
         Connection, ConnectionConfig)
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     c = Connection(ConnectionConfig(calibrated_snr=True))
     c.set_measured_snr(12.0)  # spread unknown -> conservative
@@ -732,9 +732,9 @@ def test_fade_spread_metric_separation():
     under-reads the chirp-led frame ~3 dB vs the active-average truth."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
+    from projectultra.sim import watterson as W
 
     tx = ModemEngine()
     cf = F.ConnectFrame.make_connect(
@@ -772,9 +772,9 @@ def test_benign_awgn_session_negotiates_ofdm():
     ways."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.protocol.frame_v2 import WaveformMode
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(77)
     counter = [0]
@@ -828,8 +828,8 @@ def test_otfs_session_over_watterson_good():
     does for the modes the reference does ship."""
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(61)
     counter = [0]

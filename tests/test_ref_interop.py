@@ -22,8 +22,8 @@ import os
 
 import numpy as np
 
-from projectultra_tpu.modem.engine import ModemEngine
-from projectultra_tpu.protocol import frame_v2 as F
+from projectultra.modem.engine import ModemEngine
+from projectultra.protocol import frame_v2 as F
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "golden")
 

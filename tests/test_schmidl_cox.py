@@ -5,18 +5,19 @@ regression point: OFDM @ AWGN SNR>=17 dB decodes 100%.
 """
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
-from projectultra_tpu.config import ModemConfig, Modulation, CodeRate
-from projectultra_tpu.fec import ldpc
-from projectultra_tpu.fec.interleave import channel_interleaver
-from projectultra_tpu.ofdm import modulator as M
-from projectultra_tpu.ofdm import carriers as C
-from projectultra_tpu.ops import ldpc as ldpc_ops
-from projectultra_tpu.sync import schmidl_cox as SC
-from projectultra_tpu.sim import watterson as W
-from projectultra_tpu.config import bits_per_symbol
+from projectultra.config import ModemConfig, Modulation, CodeRate
+from projectultra.fec import ldpc
+from projectultra.fec.interleave import channel_interleaver
+from projectultra.ofdm import modulator as M
+from projectultra.ofdm import carriers as C
+from projectultra.ops import ldpc as ldpc_ops
+from projectultra.sync import schmidl_cox as SC
+from projectultra.sim import watterson as W
+from projectultra.config import bits_per_symbol
 
 CFG = ModemConfig()  # default: 512 FFT, 30 carriers, pilots
 
@@ -113,9 +114,9 @@ def test_hunt_for_codeword_recovers_timing():
     position (huntForCodeword semantics, ofdm_sync.cpp:469-643)."""
     code = ldpc.get_code(CodeRate.R1_4)
     # Build a v2-looking codeword: set the first two info BYTES to 0x554C.
-    from projectultra_tpu.protocol import frame_v2 as F
+    from projectultra.protocol import frame_v2 as F
     hdr = F.ControlFrame.make_ack("W1AW", "VE3ABC", 1).serialize()
-    from projectultra_tpu.utils.bits import bytes_to_bits
+    from projectultra.utils.bits import bytes_to_bits
     info_bits = np.zeros((1, code.k), np.float32)
     raw = bytes_to_bits(hdr)[:code.k]
     info_bits[0, :len(raw)] = raw
@@ -136,3 +137,16 @@ def test_hunt_for_codeword_recovers_timing():
     found, off = SC.hunt_for_codeword(CFG, Modulation.QPSK,
                                       jnp.asarray(sig), lead - 100)
     assert found and off in (50, 100)
+
+
+@pytest.mark.parametrize("T,w", [(1000, 32), (4097, 256), (50, 50)])
+def test_window_sum_matches_direct_sliding_sum(T, w):
+    """The block-stable sliding sum against a direct numpy sum of every
+    window, on a batch of complex rows (the metric's input form)."""
+    rng = np.random.default_rng(T)
+    x = (rng.standard_normal((3, T)) + 1j * rng.standard_normal((3, T)))
+    got = np.asarray(SC._window_sum(jnp.asarray(x.astype(np.complex64)), w))
+    want = np.stack([[row[p:p + w].sum() for p in range(T - w + 1)]
+                     for row in x])
+    assert got.shape == (3, T - w + 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.sqrt(w))

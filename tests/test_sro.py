@@ -23,9 +23,9 @@ def _load_tool():
 
 def test_sro_50ppm_cox_dqpsk():
     tool = _load_tool()
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     res = tool.run_row(
         "512 COX DQPSK R1/2 @25dB", lambda: ModemEngine(),
@@ -43,9 +43,9 @@ def test_sro_100ppm_cox_qam16_retry():
     the pilot timing track, fractionally resample around the LTS anchor,
     re-demodulate) must recover it — and must report that it fired."""
     tool = _load_tool()
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     engines = []
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""BER/FER vs SNR curves per (modulation, rate) — the TPU-scale version of
+"""BER/FER vs SNR curves per (modulation, rate) — the batched version of
 the reference's per-point spot checks.
 
 Every (SNR point x frame) pair rides one batch axis, so a full curve of
@@ -34,18 +34,18 @@ def main():
     if args.bf16:
         os.environ["ULTRA_LDPC_BF16"] = "1"
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     jax.config.update("jax_default_prng_impl", "rbg")
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.ofdm import pipeline as P
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.fec import ldpc
+    from projectultra.ofdm import pipeline as P
+    from projectultra.sim import watterson as W
 
     F = args.frames
     rows = [

@@ -27,16 +27,16 @@ def main():
                     help="substring filter on 'WAVEFORM MOD RATE' row names")
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
+    from projectultra.protocol.frame_v2 import WaveformMode
+    from projectultra.sim import watterson as W
 
     def run_point(wf, mod, rate, chan, true_snr, trial):
         tx, rx = ModemEngine(), ModemEngine()

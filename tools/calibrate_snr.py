@@ -11,7 +11,7 @@ round-3 WIDEBAND estimate (ModemEngine._wideband_snr_db) that the
 calibrated_snr negotiation mode consumes — the wideband column tracking
 `true` within ~1 dB is the estimator's acceptance evidence.
 
-Usage: python tools/calibrate_snr.py [--trials N] [--tpu]
+Usage: python tools/calibrate_snr.py [--trials N] [--gpu]
 """
 
 import argparse
@@ -24,22 +24,25 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--trials", type=int, default=6)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the GPU (default: CPU)")
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    if not args.tpu:
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
+    if args.gpu:
+        backend.require_gpu()
+    else:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
+    from projectultra.protocol.frame_v2 import WaveformMode
+    from projectultra.sim import watterson as W
 
     def run_point(wf, chan, true_snr, trial):
-        from projectultra_tpu.config import CodeRate
+        from projectultra.config import CodeRate
         tx, rx = ModemEngine(), ModemEngine()
         for m in (tx, rx):
             m.set_waveform_mode(wf)

@@ -24,13 +24,13 @@ def main():
     ap.add_argument("--channel", default="awgn",
                     choices=["clean", "awgn", "good", "moderate", "poor"])
     ap.add_argument("--cfo", type=float, default=0.0)
-    ap.add_argument("--message", default="Hello from the TPU modem!")
+    ap.add_argument("--message", default="Hello from the modem!")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--seed", type=int, default=42)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -38,8 +38,8 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(args.seed)
     counter = [0]

@@ -115,8 +115,8 @@ def run_reference(ref_bin, wf, snr, cfo, channel, rate, frames, seed,
 
 
 def run_ours(wf, snr, cfo, channel, rate, frames, seed):
-    from projectultra_tpu.config import CodeRate
-    from projectultra_tpu.parallel.sweep import SweepPoint, run_point_stream
+    from projectultra.config import CodeRate
+    from projectultra.parallel.sweep import SweepPoint, run_point_stream
     point = SweepPoint(wf, snr, cfo, channel,
                        rate=CodeRate[rate.upper()], frames=frames)
     res = run_point_stream(point, seed=seed)
@@ -135,9 +135,8 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 

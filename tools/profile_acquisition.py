@@ -25,8 +25,8 @@ def main():
     ap.add_argument("--iters", type=int, default=8)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -34,8 +34,8 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.sync import chirp as CS
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.sync import chirp as CS
+    from projectultra.sim import watterson as W
 
     cc = CS.ChirpConfig()
     B = args.batch

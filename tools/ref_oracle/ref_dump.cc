@@ -2,7 +2,7 @@
 //
 // Links the UNMODIFIED reference build (libultra_core.a from
 // /root/reference, built headlessly) and re-dumps every golden file the
-// TPU rebuild's parity tests pin, byte-exact.  One subcommand per golden
+// JAX rebuild's parity tests pin, byte-exact.  One subcommand per golden
 // family; tools/ref_oracle/regen.sh drives the full set and diffs.
 //
 // This file is new test scaffolding that CALLS the reference's public

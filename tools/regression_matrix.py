@@ -31,13 +31,13 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from projectultra_tpu.parallel.sweep import (REGRESSION_MATRIX, FULL_EXTRA,
+    from projectultra.parallel.sweep import (REGRESSION_MATRIX, FULL_EXTRA,
                                                  run_matrix, run_matrix_stream)
 
     rows = list(REGRESSION_MATRIX) + (list(FULL_EXTRA) if args.full else [])

@@ -24,8 +24,8 @@ def run_session(true_snr, chan, n_msgs, calibrated):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(int(true_snr * 13) + (7 if chan == "fade" else 0))
     counter = [0]
@@ -85,8 +85,8 @@ def main():
                     help="sweep the reference-parity inflated scale instead")
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     jax.config.update("jax_platforms", "cpu")
 
     calibrated = not args.parity
@@ -102,7 +102,7 @@ def main():
     grid += [("fade", s, None) for s in (5.0, 8.0, 12.0, 16.0, 20.0)]
     if calibrated:
         grid += [("awgn", 26.0, 3.9), ("awgn", 32.0, 5.2)]
-    from projectultra_tpu.config import (Modulation, CodeRate,
+    from projectultra.config import (Modulation, CodeRate,
                                          bits_per_symbol, code_rate_value)
 
     def rank(dmode: str) -> float:

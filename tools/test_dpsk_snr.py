@@ -3,7 +3,7 @@
 
 Reference: tools/test_dpsk_snr.cpp — R1/4 at very low SNR and R1/2 at low
 SNR for the DBPSK/DQPSK/D8PSK presets, with the real Barker-13x3 preamble
-search in the loop.  TPU-native: trials x SNR points ride one batch axis
+search in the loop.  Batched: trials x SNR points ride one batch axis
 per (preset, rate) row.
 
 Usage: python tools/test_dpsk_snr.py [--cpu] [--trials N]
@@ -22,18 +22,18 @@ def main():
     ap.add_argument("--trials", type=int, default=10)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.config import CodeRate
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.ops import ldpc as ldpc_ops
-    from projectultra_tpu.psk import dpsk as D
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import CodeRate
+    from projectultra.fec import ldpc
+    from projectultra.ops import ldpc as ldpc_ops
+    from projectultra.psk import dpsk as D
+    from projectultra.sim import watterson as W
 
     T = args.trials
     rows = [

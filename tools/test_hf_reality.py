@@ -44,10 +44,10 @@ def tx_ramp(audio, n=1200):
 def run(snr_db=25.0, num_frames=12, duration_sec=60.0, soak_minutes=10.0,
         chunk=960, verbose=True, sro_ppm=0.0):
     import numpy as np
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol import frame_v2 as F
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol import frame_v2 as F
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     rng = np.random.default_rng(42)
 
@@ -418,8 +418,8 @@ def main():
                     help="6 frames / 30 s / 1 min soak (test-suite scale)")
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     if args.quick:

@@ -33,7 +33,7 @@ def run_onset(sir_db: float, tone_hz: float = 1850.0, n_msgs: int = 10,
     """One mid-session onset trial.  Returns (react_s, delivered, n_msgs,
     retransmissions, false_tones, connected)."""
     import numpy as np
-    from projectultra_tpu.protocol.engine import ProtocolEngine
+    from projectultra.protocol.engine import ProtocolEngine
 
     rng = np.random.default_rng(seed)
     state = {"on": False, "sig_p": None, "n_a": 0, "n_b": 0, "fed_b": 0,
@@ -120,9 +120,8 @@ def main():
     ap.add_argument("--msgs", type=int, default=10)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 

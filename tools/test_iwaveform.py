@@ -44,14 +44,13 @@ def main():
     args = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from projectultra_tpu.config import CodeRate
-    from projectultra_tpu.parallel.sweep import (SweepPoint, run_point,
+    from projectultra.config import CodeRate
+    from projectultra.parallel.sweep import (SweepPoint, run_point,
                                                  run_point_stream)
 
     wf = {"mc_dpsk": "MC_DPSK", "ofdm_chirp": "OFDM_CHIRP",

@@ -2,7 +2,7 @@
 """OFDM D8PSK vs DQPSK decode rate across the full SNR range (AWGN).
 
 Reference: tools/test_mode_snr.cpp — decode % per (modulation, rate, SNR)
-and the minimum SNR reaching 90%+.  TPU-native: all trials AND all SNR
+and the minimum SNR reaching 90%+.  Batched: all trials AND all SNR
 points batch together — each (mod, rate) row is ONE device program over a
 [n_snr * trials] batch.
 
@@ -22,17 +22,17 @@ def main():
     ap.add_argument("--trials", type=int, default=20)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.ofdm import pipeline as P
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.fec import ldpc
+    from projectultra.ofdm import pipeline as P
+    from projectultra.sim import watterson as W
 
     T = args.trials
     rows = [

@@ -23,19 +23,19 @@ def main():
     ap.add_argument("--trials", type=int, default=20)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.config import Modulation, CodeRate
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.ofdm import pipeline as P
-    from projectultra_tpu.ops import ldpc as ldpc_ops
-    from projectultra_tpu.otfs import otfs as O
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import Modulation, CodeRate
+    from projectultra.fec import ldpc
+    from projectultra.ofdm import pipeline as P
+    from projectultra.ops import ldpc as ldpc_ops
+    from projectultra.otfs import otfs as O
+    from projectultra.sim import watterson as W
 
     B = args.trials
     snr = args.snr

@@ -46,10 +46,10 @@ def run_session(profile, true_snr, n_bytes, warm_msgs=16, chunk=4000,
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from projectultra_tpu.config import nvis_mode
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.config import nvis_mode
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     key = jax.random.PRNGKey(int(true_snr * 17) + len(profile))
     counter = [0]
@@ -161,16 +161,17 @@ def main():
                     help="comma list of profile_snr rows")
     ap.add_argument("--bytes", type=int, default=6000)
     ap.add_argument("--chunk", type=int, default=4000)
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) backend")
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the GPU (default: CPU)")
     ap.add_argument("--sro-ppm", type=float, default=0.0,
                     help="TX/RX sample-clock skew in ppm (A fast, B slow)")
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    if not args.tpu:
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
+    if args.gpu:
+        backend.require_gpu()
+    else:
         jax.config.update("jax_platforms", "cpu")
 
     print("=== session throughput (ARQ-inclusive over-the-air) ===")

@@ -63,7 +63,7 @@ def run_row(label, mk_engine, waveform, mod, rate, snr_db, payload, ppm_list,
     apply_sro) before the noise.  Shared harness for the SRO matrix and
     the CFO-ramp tool (tools/test_cfo_ramp.py)."""
     import numpy as np
-    from projectultra_tpu.protocol import frame_v2 as F
+    from projectultra.protocol import frame_v2 as F
 
     if distort is None:
         distort = apply_sro
@@ -139,15 +139,15 @@ def main():
     ap.add_argument("--frames", type=int, default=3)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from projectultra_tpu.config import (ModemConfig, Modulation, CodeRate,
+    from projectultra.config import (ModemConfig, Modulation, CodeRate,
                                          nvis_mode)
-    from projectultra_tpu.modem.engine import ModemEngine
-    from projectultra_tpu.protocol.frame_v2 import WaveformMode
+    from projectultra.modem.engine import ModemEngine
+    from projectultra.protocol.frame_v2 import WaveformMode
 
     rows = {
         "cox_dqpsk": ("512 COX DQPSK R1/2 @25dB", lambda: ModemEngine(),

@@ -23,20 +23,20 @@ def main():
     ap.add_argument("--trials", type=int, default=10)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.config import ModemConfig, Modulation, CodeRate, bits_per_symbol
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.fec.interleave import channel_interleaver
-    from projectultra_tpu.ofdm import carriers as C, modulator as M, pipeline as P
-    from projectultra_tpu.ops import ldpc as ldpc_ops
-    from projectultra_tpu.sim import watterson as W
-    from projectultra_tpu.sync import schmidl_cox as SC
+    from projectultra.config import ModemConfig, Modulation, CodeRate, bits_per_symbol
+    from projectultra.fec import ldpc
+    from projectultra.fec.interleave import channel_interleaver
+    from projectultra.ofdm import carriers as C, modulator as M, pipeline as P
+    from projectultra.ops import ldpc as ldpc_ops
+    from projectultra.sim import watterson as W
+    from projectultra.sync import schmidl_cox as SC
 
     B = args.trials
     snr = args.snr

@@ -40,8 +40,8 @@ def main():
     ap.add_argument("--codewords", type=int, default=8)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -49,23 +49,23 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from projectultra_tpu.config import (ModemConfig, Modulation, CodeRate,
+    from projectultra.config import (ModemConfig, Modulation, CodeRate,
                                          nvis_mode, bits_per_symbol)
-    from projectultra_tpu.fec import ldpc
-    from projectultra_tpu.fec.interleave import channel_interleaver
-    from projectultra_tpu.ofdm import carriers as C, modulator as M
-    from projectultra_tpu.ofdm import pipeline as P
-    from projectultra_tpu.ops import ldpc as ldpc_ops
-    from projectultra_tpu.sim import watterson as W
-    from projectultra_tpu.sync import schmidl_cox as SC
-    from projectultra_tpu.sync import chirp as chirp_mod
-    from projectultra_tpu.ofdm import demodulator as D
-    from projectultra_tpu.protocol import frame_v2 as F
+    from projectultra.fec import ldpc
+    from projectultra.fec.interleave import channel_interleaver
+    from projectultra.ofdm import carriers as C, modulator as M
+    from projectultra.ofdm import pipeline as P
+    from projectultra.ops import ldpc as ldpc_ops
+    from projectultra.sim import watterson as W
+    from projectultra.sync import schmidl_cox as SC
+    from projectultra.sync import chirp as chirp_mod
+    from projectultra.ofdm import demodulator as D
+    from projectultra.protocol import frame_v2 as F
 
     LEAD, TAIL = 7200, 1152
     ncw = args.codewords
 
-    from projectultra_tpu.config import high_throughput
+    from projectultra.config import high_throughput
     rows = [
         # (label, config, mod, rate, snr, sync[, channel])
         # BASELINE.md link-throughput table, row for row.
@@ -160,7 +160,7 @@ def main():
             # failed-decode ladder.
             llrs_df = None
             if chan != "awgn" and len(cm.pilot_idx):
-                from projectultra_tpu.ofdm import delay_fit as DF
+                from projectultra.ofdm import delay_fit as DF
                 plen_ = cfg.fft_size + cfg.cyclic_prefix
                 dfl = []
                 for i, (_, det) in enumerate(lanes):

@@ -29,7 +29,7 @@ RAMP = " .:-=+*#%@"
 
 def render_waterfall(audio, width=64, lines=12):
     import numpy as np
-    from projectultra_tpu.utils.observability import waterfall
+    from projectultra.utils.observability import waterfall
     if audio is None or len(audio) < 4096:
         return ["(no audio yet)"]
     db, freqs = waterfall(audio)
@@ -48,7 +48,7 @@ def render_constellation(points, size=17):
     import numpy as np
     if points is None or len(points) == 0:
         return []
-    from projectultra_tpu.utils.observability import constellation
+    from projectultra.utils.observability import constellation
     iq = constellation(points)
     lim = max(1e-6, float(np.abs(iq).max())) * 1.1
     grid = [[" "] * (2 * size + 1) for _ in range(size + 1)]
@@ -94,8 +94,8 @@ def main():
     ap.add_argument("--snr", type=float, default=15.0)
     args = ap.parse_args()
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_projectultra")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from projectultra.utils import backend
+    backend.enable_compile_cache()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     if not args.sim:
@@ -104,8 +104,8 @@ def main():
 
     import numpy as np
     import jax.numpy as jnp
-    from projectultra_tpu.protocol.engine import ProtocolEngine
-    from projectultra_tpu.sim import watterson as W
+    from projectultra.protocol.engine import ProtocolEngine
+    from projectultra.sim import watterson as W
 
     a, b = ProtocolEngine(), ProtocolEngine()
     a.connection.set_local_callsign("W1AW")
